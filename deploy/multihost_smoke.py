@@ -3,8 +3,8 @@
 
 SURVEY.md §5.8 / §2.4 mandate a multi-host Schur reduction over
 `jax.distributed`. This script proves the path end to end with *real*
-process boundaries (gloo collectives between processes — the CPU stand-in
-for ICI/DCN):
+process boundaries (gloo collectives between processes — a CPU multi-process
+test of the collective path):
 
   - N processes each expose K virtual CPU devices
     (XLA_FLAGS=--xla_force_host_platform_device_count=K)
@@ -14,8 +14,9 @@ for ICI/DCN):
   - every process verifies its result against a local single-device
     `gn.optimize` of the same sessions (allclose, f32)
 
-Run on a real multi-host v5e slice with the same flags minus the CPU
-forcing. Locally:
+On GPUs the same path runs one process per card: several JAX processes
+on one card fail for want of memory, so K virtual devices per process is
+a CPU-only arrangement. Locally:
 
   python deploy/multihost_smoke.py            # spawns itself twice, asserts
   python deploy/multihost_smoke.py --proc 0 & # or run the ranks by hand

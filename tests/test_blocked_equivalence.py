@@ -116,12 +116,6 @@ def test_blocked_rejects_unsupported_config():
     with pytest.raises(ValueError):
         run_sequence_blocked(initial_state(cap), obs, valid, poses, cfg,
                              block=8)
-    # the Pallas provider has no 'first' (index-order) policy — exactly as
-    # per-frame; 'nearest'/'mahalanobis' compose with the blocked pipeline
-    cfg = SlamConfig(capacity=cap, association="first",
-                     use_pallas_association=True)
-    with pytest.raises(ValueError):
-        run_sequence_blocked(initial_state(cap), obs, valid, poses, cfg)
 
 
 @pytest.mark.parametrize("block", [4, 8])
@@ -379,22 +373,6 @@ def test_blocked_stress_dense_noisy_layouts(seed):
     _assert_state_equal(s1, s2, f"state[stress seed={seed}]")
 
 
-def test_blocked_pallas_association_matches_per_frame():
-    """Blocked pipeline with the Pallas association provider (VERDICT r2
-    weak #5): must equal the per-frame path running the SAME provider."""
-    obs, valid, poses, cap = _scenario(trackdrive, seed=11)
-    cfg = SlamConfig(capacity=cap, association="nearest",
-                     use_pallas_association=True)
-    assert __import__("tpuslam.frontend.blocked",
-                      fromlist=["blocked_supported"]).blocked_supported(cfg)
-    s1, o1 = run_sequence(initial_state(cap), obs, valid, poses, cfg)
-    s2, o2 = run_sequence_blocked(initial_state(cap), obs, valid, poses,
-                                  cfg, block=8)
-    assert bool(s1.loop_closure_complete)
-    _assert_tree_equal(o1, o2, "outputs[pallas,B=8]")
-    _assert_state_equal(s1, s2, "state[pallas,B=8]")
-
-
 def test_blocked_sharded_association_matches_per_frame():
     """Blocked pipeline with the landmark-sharded map-block provider: must
     equal the per-frame path running the same provider over the same mesh
@@ -410,24 +388,6 @@ def test_blocked_sharded_association_matches_per_frame():
     assert bool(s1.loop_closure_complete)
     _assert_tree_equal(o1, o2, "outputs[sharded,B=8]")
     _assert_state_equal(s1, s2, "state[sharded,B=8]")
-
-
-def test_blocked_pallas_mahalanobis_contract():
-    """Pallas provider + mahalanobis through the blocked machinery stays
-    within the block-lag contract (same bar as the dense mahalanobis
-    block=8 test)."""
-    obs, valid, poses, cap = _mahal_scenario()
-    cfg = SlamConfig(capacity=cap, association="mahalanobis",
-                     use_pallas_association=True)
-    s1, o1 = run_sequence(initial_state(cap), obs, valid, poses, cfg)
-    s2, o2 = run_sequence_blocked(initial_state(cap), obs, valid, poses,
-                                  cfg, block=8)
-    assert bool(s2.loop_closure_complete)
-    n1, n2 = int(s1.graph.n_landmarks), int(s2.graph.n_landmarks)
-    assert abs(n1 - n2) <= 2, (n1, n2)
-    d = np.linalg.norm(np.asarray(o1.pose)[:, :2]
-                       - np.asarray(o2.pose)[:, :2], axis=1)
-    assert float(np.max(d)) < 0.05, float(np.max(d))
 
 
 def test_blocked_publish_refine_matches_run_sequence():

@@ -1,4 +1,4 @@
-"""Behavioral parity: TPU engine (reference_compat) vs the NumPy golden
+"""Behavioral parity: the JAX engine (reference_compat) vs the NumPy golden
 frontend that mirrors the reference C++ control flow line by line."""
 import numpy as np
 
@@ -30,19 +30,19 @@ def test_mapping_matches_reference_semantics():
                            scen.odom_poses[t])
 
     assert slam.loop_closure_complete == gold.loop_closure_complete
-    n_tpu = int(slam.state.graph.n_landmarks)
+    n_dev = int(slam.state.graph.n_landmarks)
     n_gold = len(gold.graph.landmarks)
-    assert n_tpu == n_gold, (n_tpu, n_gold)
+    assert n_dev == n_gold, (n_dev, n_gold)
 
-    lm_tpu, type_tpu = slam.draw_cones()
+    lm_dev, type_dev = slam.draw_cones()
     lm_gold = gold.landmarks
     # identical association decisions => identical map ordering; positions
     # agree to f32-vs-f64 tolerance (both sides ran the same 10-iteration GN)
-    np.testing.assert_allclose(lm_tpu, lm_gold, atol=2e-2)
-    np.testing.assert_array_equal(type_tpu, np.array(gold.map_type))
+    np.testing.assert_allclose(lm_dev, lm_gold, atol=2e-2)
+    np.testing.assert_array_equal(type_dev, np.array(gold.map_type))
     assert int(slam.state.current_cone_index) == gold.current_cone_index
 
     # trajectory: pose chains must match (odometry in, optimized at closure)
-    poses_tpu = slam.draw_poses()
+    poses_dev = slam.draw_poses()
     poses_gold = np.stack(gold.graph.poses)
-    np.testing.assert_allclose(poses_tpu[:, :2], poses_gold[:, :2], atol=2e-2)
+    np.testing.assert_allclose(poses_dev[:, :2], poses_gold[:, :2], atol=2e-2)

@@ -480,11 +480,9 @@ def test_fuse_sessions_solver_registry(session_pack):
 
 
 def test_fusion_robust_trim_beats_plain_on_drift():
-    """VERDICT r4 next #4: trimmed ICP (robust=True, best 75% of matched
-    pairs per iteration) must register drifted sessions at least as well
-    as the untrimmed alignment — measured 0.031 -> 0.020 m fused map
-    error on the 8-session bench configuration
-    (scripts/exp_drifted_fusion.py)."""
+    """Trimmed ICP (robust=True, best 75% of matched pairs per
+    iteration) must register drifted sessions at least as well as the
+    untrimmed alignment."""
     cap = GraphCapacity(max_poses=128, max_landmarks=128, max_obs=2048)
     cfg = SlamConfig.improved(capacity=cap, association="mahalanobis",
                               periodic_gn_every=0)

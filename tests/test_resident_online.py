@@ -146,10 +146,6 @@ def test_resident_online_map_is_physically_sharded():
 
 def test_resident_online_rejects_unsupported():
     obs, valid, poses, cap = _scenario()
-    cfg = SlamConfig(capacity=cap, use_pallas_association=True,
-                     association="nearest")
-    with pytest.raises(ValueError):
-        RO.run_pass_resident_online(obs, valid, poses, cfg, _mesh())
     # full-batch periodic GN (no window) is a dense-map construct
     cfg2 = SlamConfig.improved(capacity=cap, periodic_gn_every=16,
                                periodic_gn_window=0)

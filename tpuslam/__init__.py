@@ -1,6 +1,6 @@
-"""tpuslam — a TPU-native landmark GraphSLAM framework.
+"""tpuslam — a landmark GraphSLAM framework in JAX, run on an NVIDIA GPU.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the CFSD18
+Brand-new JAX/XLA implementation with the capabilities of the CFSD18
 Formula Student Driverless SLAM stack (reference:
 cfsd/opendlv-logic-cfsd18-sensation-slam, surveyed in SURVEY.md).
 
@@ -8,7 +8,7 @@ Subpackages
 -----------
 geometry   SE(2) ops, spherical->Cartesian sensor model, WGS84 Mercator geodesy
 frontend   frame assembly, keyframe gating, EKF motion model, map state
-ops        device kernels: association, Hessian assembly, Schur, Cholesky
+ops        dense data association (the semantics reference)
 backend    factor-graph state + Gauss-Newton optimizer (landmark-Schur)
 core       the Slam orchestrator (ingest API mirroring the reference service)
 parallel   mesh setup, sharded association, distributed Schur reduction

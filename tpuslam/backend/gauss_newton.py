@@ -2,16 +2,16 @@
 
 Replaces the reference's g2o stack (`OptimizationAlgorithmGaussNewton` over
 `BlockSolver<-1,-1>` + `LinearSolverEigen`, reference src/slam.cpp:53-65 and
-461-484) with a TPU-first design:
+461-484) with a dense, batched design:
 
-- All factor residuals/Jacobians evaluate batched on the VPU
+- All factor residuals/Jacobians evaluate batched
   (tpuslam.backend.residuals — closed forms, no autodiff in the hot path).
-- The Hessian is assembled into *dense blocked* structures sized for the MXU:
+- The Hessian is assembled into *dense blocked* structures:
   Hpp (3P x 3P), the pose-landmark coupling W (3P x 2L), and the landmark
   diagonal Hll as [L, 2, 2] blocks. Landmark elimination (Schur complement
   S = Hpp - W Hll^-1 W^T) is one large matmul; at Formula-Student scale
-  (P ~ 1e3 poses, L ~ 5e2 landmarks) densifying the reduced system and
-  feeding the systolic array beats any sparse factorization.
+  (P ~ 1e3 poses, L ~ 5e2 landmarks) the reduced system is densified and
+  factorized with one dense Cholesky.
 - Gauge freedom is fixed exactly as the reference does: the first two poses
   and first two landmarks are clamped (reference src/slam.cpp:464-474),
   implemented by projecting their rows/columns to identity so their update is
@@ -46,15 +46,11 @@ class GNConfig:
     fix_first_poses: int = 2                       # vertices 1000,1001 (src/slam.cpp:464-468)
     fix_first_landmarks: int = 2                   # vertices 0,1 (src/slam.cpp:470-474)
     damping: float = 0.0                           # optional Levenberg diag boost
-    use_cholesky_kernel: bool = False   # Pallas S solve — RETIRED from the
-    # production path after measurement (XLA wins ~2x at closure-scale and
-    # 2-3x batched; full table in ops/cholesky.py); kept as a validated
-    # reference implementation
-    matmul_precision: str = "highest"              # MXU passes for assembly/Schur:
-    # "highest" = full f32 (6-pass bf16); "high" = 3-pass; "default" = raw
-    # bf16. The normal equations square the conditioning, so "default" is
-    # unsafe near closure-scale graphs; "high" trades ~2x matmul throughput
-    # for ~1e-3 relative error (mixed-precision graph optimization a la
+    matmul_precision: str = "highest"              # dot precision for assembly/Schur:
+    # "highest" = full f32; "high" and "default" let the backend use
+    # reduced-precision passes (TF32 on a GPU's tensor cores). The normal
+    # equations square the conditioning, so "default" is unsafe near
+    # closure-scale graphs (mixed-precision graph optimization a la
     # Graphite, PAPERS.md [2]). The reduced-system Cholesky itself always
     # runs in f32.
     solve_bucket_step: int = 128                   # pose-count granularity of the
@@ -162,10 +158,11 @@ def landmark_edge_blocks(poses, lm_xy, obs_pose, obs_lm, obs_xy, w_l, n_landmark
     results from an edge-sharded mesh psum into the full-graph totals —
     this is the distributed-Schur building block (SURVEY.md §2.4).
 
-    TPU note: every aggregation here is a one-hot matmul, not a
-    scatter-add/segment_sum — XLA lowers indexed scatters to sort-based
-    loops that cost milliseconds at this scale, while the equivalent
-    [P,E]@[E,k] contractions ride the MXU in tens of microseconds.
+    Every aggregation here is a one-hot [P,E]@[E,k] matmul, not a
+    scatter-add/segment_sum: the form chosen for the code's first
+    accelerator, whose compiler lowered indexed scatters to sort-based
+    loops. Whether the plain scatter-add is faster on a GPU is not
+    measured yet.
     """
     h_diag_lm, w0, w1, hll, gp_lm, gl = _landmark_edge_blocks_split(
         poses, lm_xy, obs_pose, obs_lm, obs_xy, w_l, n_landmarks)
@@ -182,8 +179,8 @@ def _landmark_edge_blocks_split(poses, lm_xy, obs_pose, obs_lm, obs_xy, w_l,
                                 n_landmarks):
     """`landmark_edge_blocks` with W returned as even/odd column halves
     W0, W1 [3P, L] — the hot-path layout: interleaved [3P, 2L] forces
-    stride-2 lane slicing in the Schur product (measured ~10x slower
-    batched), while the halves keep every op full-lane."""
+    stride-2 slicing in the Schur product, while the halves keep every op
+    contiguous."""
     P = poses.shape[0]
     L = n_landmarks
     E = obs_pose.shape[0]
@@ -219,10 +216,8 @@ def densify_hpp(h_diag, h_off):
 
     Built with broadcast multiplies against (shifted-)block-identity masks,
     entirely in [3P, 3P] 2-D layout — a fused elementwise pass over the
-    output. Two rejected forms, both measured 10-50x slower on TPU: indexed
-    scatters (XLA lowers them to sort-based loops) and [P,3,P,3]-shaped
-    broadcasts (a trailing dim of 3 wastes 125 of each 128-lane vector
-    register).
+    output, in place of an indexed scatter or [P,3,P,3]-shaped broadcasts
+    (forms with a trailing dim of 3).
     """
     P = h_diag.shape[0]
     tp = 3 * P
@@ -323,29 +318,29 @@ def _apply_gauge(g: FactorGraph, cfg: GNConfig, hpp, w_mat, hll, gp, gl):
     return hpp, w_mat, hll, gp, gl
 
 
-def schur_solve(hpp, w_mat, hll, gp, gl, use_cholesky_kernel=False):
+def schur_solve(hpp, w_mat, hll, gp, gl):
     """Solve the gauged system via landmark Schur elimination (public,
     interleaved-W form; the hot path uses `schur_solve_split` directly).
 
     [Hpp  W ] [dp]   [-gp]      S dp = -gp + W Hll^-1 gl,
     [W^T Hll] [dl] = [-gl]  =>  dl   = -Hll^-1 (gl + W^T dp),
-    with S = Hpp - W Hll^-1 W^T computed as one MXU matmul.
+    with S = Hpp - W Hll^-1 W^T computed as one matmul.
 
-    NOTE: runs under highest matmul precision — TPU default bf16 passes wreck
-    the normal equations' conditioning and NaN the Cholesky.
+    NOTE: callers run it under highest matmul precision — reduced-precision
+    dot passes (bf16, TF32) wreck the normal equations' conditioning and NaN
+    the Cholesky.
     """
     return schur_solve_split(hpp, w_mat[:, 0::2], w_mat[:, 1::2], hll, gp,
-                             gl, use_cholesky_kernel=use_cholesky_kernel)
+                             gl)
 
 
-def schur_solve_split(hpp, w0, w1, hll, gp, gl, use_cholesky_kernel=False):
+def schur_solve_split(hpp, w0, w1, hll, gp, gl):
     """`schur_solve` on even/odd W column halves W0/W1 [3P, L].
 
-    Arrays whose trailing dim is 2 (e.g. [3P, L, 2] einsum operands) waste
-    63/64 of each TPU vector register — and slicing them back out of the
-    interleaved [3P, 2L] layout is a stride-2 lane gather, measured ~10x
-    slower batched. The halves keep every op in full-lane [3P, L] layout
-    and the Schur product as two MXU matmuls.
+    The halves avoid [3P, L, 2] einsum operands and the stride-2 slices
+    that would cut them out of the interleaved [3P, 2L] layout: every op
+    stays in contiguous [3P, L] layout and the Schur product is two
+    matmuls. The factorization is `jnp.linalg.cholesky`.
     """
     hll_inv = _inv2x2(hll)                                   # [L, 2, 2]
     ia, ib, ic = hll_inv[:, 0, 0], hll_inv[:, 0, 1], hll_inv[:, 1, 1]
@@ -354,11 +349,7 @@ def schur_solve_split(hpp, w0, w1, hll, gp, gl, use_cholesky_kernel=False):
     s = hpp - (wa0 @ w0.T + wa1 @ w1.T)
     gl0, gl1 = gl[:, 0], gl[:, 1]
     rhs = -gp + (wa0 @ gl0 + wa1 @ gl1)
-    if use_cholesky_kernel:
-        from tpuslam.ops.cholesky import cholesky as chol_fn
-        c = chol_fn(s)
-    else:
-        c = jnp.linalg.cholesky(s)
+    c = jnp.linalg.cholesky(s)
     dp = jax.scipy.linalg.cho_solve((c, True), rhs)
     wtdp0 = w0.T @ dp                                        # [L]
     wtdp1 = w1.T @ dp
@@ -431,8 +422,7 @@ def _bucketed_schur_solve(n_poses, h_diag, h_off, w0, w1, hll, gp, gl,
             h_diag, h_off, w0, w1, hll, gp, gl = ops
             hpp_b = densify_hpp(h_diag[:b], h_off[:b])
             dp_b, dl = schur_solve_split(
-                hpp_b, w0[:3 * b], w1[:3 * b], hll, gp[:b].reshape(-1), gl,
-                use_cholesky_kernel=cfg.use_cholesky_kernel)
+                hpp_b, w0[:3 * b], w1[:3 * b], hll, gp[:b].reshape(-1), gl)
             dp = jnp.zeros((3 * p_cap,), dp_b.dtype).at[:3 * b].set(dp_b)
             return dp, dl
         return branch
@@ -454,7 +444,7 @@ def gn_step(g: FactorGraph, cfg: GNConfig) -> FactorGraph:
             h_diag, h_off, w0, w1, hll, gp2, gl = blocks
             dp, dl = schur_solve_split(
                 densify_hpp(h_diag, h_off), w0, w1, hll, gp2.reshape(-1),
-                gl, use_cholesky_kernel=cfg.use_cholesky_kernel)
+                gl)
     d_pose = dp.reshape(-1, 3)
     poses = g.poses + d_pose
     # wrap only active vertices: rows >= n_poses receive an exact-zero
@@ -473,15 +463,14 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int,
     """One fixed-lag GN iteration: refine the trailing `window` poses (and,
     with `landmarks=True`, the map) with everything older marginalized.
 
-    The full periodic re-optimization (`optimize`) costs O(P·E·L) per firing
-    — measured at 2-4 ms at lap scale, which at a firing every 8 keyframes
-    caps the improved-full pipeline at ~4-7k frames/s no matter how the
-    solve is bucketed (scripts/exp_periodic_gn.py). Fixed-lag smoothing is
+    The full periodic re-optimization (`optimize`) costs O(P·E·L) per firing,
+    which at a firing every 8 keyframes dominates the improved-full
+    pipeline no matter how the solve is bucketed. Fixed-lag smoothing is
     the standard online answer: poses before `n_poses - window` and every
     landmark are constants, so the system is the window's block-tridiagonal
     odometry chain plus pose-block-diagonal landmark terms — a [3W, 3W]
     dense solve with no Schur elimination and no lax.switch, cheap enough
-    to run *inside* the blocked pipeline's scans (~100 µs vs ~4 ms).
+    to run *inside* the blocked pipeline's scans.
 
     Anchoring: the boundary odometry edge (fixed pose w0-1 -> window row 0)
     contributes only its J_j half, tying the window to the fixed prefix;
@@ -581,8 +570,12 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int,
     jtp = jnp.swapaxes(j_lp, -1, -2)
     onehot_p = (local[None, :] == jnp.arange(W)[:, None]).astype(dtype)
     hpp_e = (wl3 * (jtp @ j_lp)).reshape(EW, 9)
-    h_diag = h_diag + (onehot_p @ hpp_e).reshape(W, 3, 3)
-    gp = gp + onehot_p @ (w_l[:, None] * (jtp @ r_l[..., None])[..., 0])
+    # one-hot sums outside the precision scope below: pinned to full f32
+    hi = jax.lax.Precision.HIGHEST
+    h_diag = h_diag + jnp.matmul(onehot_p, hpp_e, precision=hi).reshape(
+        W, 3, 3)
+    gp = gp + jnp.matmul(onehot_p, w_l[:, None]
+                         * (jtp @ r_l[..., None])[..., 0], precision=hi)
 
     # ---- gauge clamping by GLOBAL index (same rows gn_step clamps)
     free = (kg >= cfg.fix_first_poses) & (kg < n)
@@ -715,8 +708,7 @@ def optimize(g: FactorGraph, cfg: GNConfig, enable=None) -> FactorGraph:
     inside scans should prefer `optimize(g, cfg, enable=flag)` over
     `lax.cond(flag, optimize, identity)` — a zero-trip while_loop skips the
     assemble/solve body entirely, whereas a conditional carrying the graph
-    state forces per-iteration buffer copies of the branch operands on TPU
-    (measured ~0.5 ms/scan-iteration on v5e, even when never taken).
+    state forces per-iteration buffer copies of the branch operands.
     """
     iters = jnp.int32(cfg.iterations)
     if enable is not None:

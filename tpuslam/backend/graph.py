@@ -4,7 +4,7 @@ The reference builds its graph incrementally inside g2o (`VertexSE2` poses with
 ids from 1000, `VertexPointXY` landmarks with ids from 0, `EdgeSE2` odometry
 chain, `EdgeSE2PointXY` landmark observations — reference src/slam.cpp:433-550).
 
-TPU-native redesign: instead of a pointer-graph, the whole problem lives in
+Accelerator-friendly redesign: instead of a pointer-graph, the whole problem lives in
 fixed-capacity structure-of-arrays with validity masks (SURVEY.md §7 "Hard
 parts": dynamic growth vs XLA static shapes). Every mutation is a functional
 masked write, so the per-keyframe update jits into one fused XLA program and

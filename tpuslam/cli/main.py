@@ -518,9 +518,10 @@ def cmd_msc(args):
     return 0
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="slamctl",
-                                description="TPU-native landmark SLAM")
+                                description="landmark GraphSLAM for "
+                                            "Formula Student cars (JAX)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def add_attention_flags(sp):
@@ -568,7 +569,7 @@ def main(argv=None):
                     default="live",
                     help="live = message-level per-frame engine; blocked = "
                          "whole-lap frame-blocked device pipeline "
-                         "(frontend/blocked.py, bit-exact, ~20x faster); "
+                         "(frontend/blocked.py, bit-exact); "
                          "resident = the blocked pass with the landmark "
                          "map physically sharded over a ('map',) device "
                          "mesh (parallel/resident_online.py — per-device "
@@ -582,7 +583,7 @@ def main(argv=None):
                          "pipelines; with --improved, a periodic-GN "
                          "cadence that divides the block runs mid-block "
                          "multi-fire (e.g. --block 32 with the every-16 "
-                         "default — the measured throughput sweet spot)")
+                         "default)")
     ps.add_argument("--png")
     ps.set_defaults(fn=cmd_sim)
 
@@ -608,13 +609,12 @@ def main(argv=None):
                          "distributed Schur when --mesh-shards > 1 else "
                          "single-device; dd = pose-chain domain "
                          "decomposition; hier = two-level hierarchical "
-                         "solve (tray-local elimination on ICI, O(trays) "
-                         "boundary system across trays — the pod-scale "
-                         "path, parallel/hier.py); hier3 = three-level "
-                         "(trays -> pod boundary on ICI -> O(pods) system "
-                         "on DCN — the multi-pod path, parallel/hier3.py)")
+                         "solve (tray-local elimination, O(trays) "
+                         "boundary system across trays, parallel/hier.py); "
+                         "hier3 = three-level (trays -> group boundary -> "
+                         "O(groups) system, parallel/hier3.py)")
     pf.add_argument("--tray", type=int, default=0,
-                    help="ICI-domain size for --solver hier (devices per "
+                    help="tray size for --solver hier (devices per "
                          "tray; must divide the device count; 0 = largest "
                          "divisor <= 16)")
     pf.add_argument("--gn-iterations", type=int, default=5)
@@ -660,19 +660,24 @@ def main(argv=None):
                     help="output .py path (default: stdout)")
     pg.set_defaults(fn=cmd_msc)
 
-    p.add_argument("--platform", choices=["cpu", "tpu"], default=None,
-                   help="force the JAX backend (some environments register a "
-                        "TPU plugin that ignores JAX_PLATFORMS)")
+    p.add_argument("--platform", choices=["cpu", "gpu"], default=None,
+                   help="JAX backend to run on (default: JAX's own choice, "
+                        "the GPU when one is visible)")
     for sp in (pr, pp, ps, pb, pe, pm, pv, pg, pc):
         # SUPPRESS: a subcommand without the flag must not clobber a
         # pre-subcommand --platform (argparse overwrites parent defaults)
-        sp.add_argument("--platform", choices=["cpu", "tpu"],
+        sp.add_argument("--platform", choices=["cpu", "gpu"],
                         default=argparse.SUPPRESS, help=argparse.SUPPRESS)
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    import jax
     if getattr(args, "platform", None):
-        import jax
         jax.config.update("jax_platforms", args.platform)
+    from tpuslam.runtime.device import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

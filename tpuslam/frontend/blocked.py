@@ -2,16 +2,17 @@
 
 `run_sequence` (tpuslam/frontend/pipeline.py) executes one keyframe per
 lax.scan iteration; a whole-lap pass is dominated by per-iteration loop costs,
-not FLOPs or HBM. Two measured v5e pathologies shape this module's design:
+not FLOPs or memory traffic. Two rules, set when the code targeted its first
+accelerator and not yet measured again on a GPU, shape this module's design:
 
-1. A `lax.cond` branch inside a scan costs ~0.1-0.5 ms per scan iteration
-   *even when never taken* (branch operand copies defeat the loop's buffer
-   aliasing), so the block scan bodies are straight-line programs — mode
-   handling and commit/abort decisions are elementwise `jnp.where` selects,
-   never conditionals.
-2. Merely *containing* the Gauss-Newton solver (its ~30 MB of dense-blocked
-   temporaries) multiplies a loop iteration's cost by ~3x, even behind a
-   zero-trip while_loop. So no loop in this module contains GN at all: the
+1. A `lax.cond` branch inside a scan can cost a copy of its operands per
+   scan iteration *even when never taken* (branch operand copies defeat the
+   loop's buffer aliasing), so the block scan bodies are straight-line
+   programs — mode handling and commit/abort decisions are elementwise
+   `jnp.where` selects, never conditionals.
+2. A loop that merely *contains* the Gauss-Newton solver (its ~30 MB of
+   dense-blocked temporaries) pays for them on every iteration, even behind
+   a zero-trip while_loop. So no loop in this module contains GN at all: the
    one-shot closure optimization (reference src/slam.cpp:625-633) is hoisted
    to the top level of the pass, between two GN-free scans.
 
@@ -91,21 +92,16 @@ post-GN graph). The full improved mode is also blocked:
   Localization-mode gating is exact at any block size (information is
   frozen after closure).
 
-Association providers (VERDICT r2 weak #5 — the fast path and the pod-scale
-path are no longer mutually exclusive): the block's phase-A gating can run
-through the tiled Pallas kernel (cfg.use_pallas_association; policies
-'nearest'/'mahalanobis', same provider semantics as the per-frame path) or
-the landmark-sharded map-block provider (blocked_core(assoc_mesh=...)) —
-the [B*N] flattened observation axis is handed to the provider in place of
-the dense [B*N, L] cost matrix; everything else (in-block creations,
-duplicate representatives, closure prefixes) is provider-agnostic. Blocked
-results match the per-frame path exactly like the dense configs do, because
-the per-frame path uses the same provider (tests/test_pallas_kernels.py,
-test_parallel.py).
+Association provider: the block's phase-A gating can run through the
+landmark-sharded map-block provider (blocked_core(assoc_mesh=...)) — the
+[B*N] flattened observation axis is handed to the provider in place of the
+dense [B*N, L] cost matrix; everything else (in-block creations, duplicate
+representatives, closure prefixes) is provider-agnostic. Blocked results
+match the per-frame path exactly like the dense configs do, because the
+per-frame path uses the same provider (tests/test_blocked_equivalence.py).
 
 Still unsupported (raise — use `run_sequence`): scan-form (non-vectorized)
-mapping; the Pallas/'first' combination (the kernel has no index-order
-policy, exactly as per-frame).
+mapping.
 """
 from __future__ import annotations
 
@@ -150,8 +146,6 @@ def blocked_supported(cfg: SlamConfig, block: int = 8) -> bool:
     mahalanobis lag contract and the mid-block firing contract; everything
     else is bit-exact)."""
     return (cfg.association in ("first", "nearest", "mahalanobis")
-            and not (cfg.use_pallas_association
-                     and cfg.association == "first")
             and cfg.vectorized_mapping
             and (cfg.periodic_gn_every == 0
                  or cfg.periodic_gn_every % block == 0
@@ -263,15 +257,10 @@ def _packet_series(lm_xy, lm_type, n_lm_after, cur_after, out_pose,
 
 
 DUP_PACKED = False  # module switch for the pair-machinery implementation
-# (both bit-identical). MEASURED-AND-RETIRED (scripts/exp_dup_impl.py, v5e,
-# compact=16/32, single + S=16 batched): the packed form's 32x-smaller
-# fixpoint working set loses to its packing multiplies and per-row
-# first-bit gathers everywhere tested —
-#   naive  nc=16: 208.2k single / 594.8k S=16;  nc=32: 169.4k / 331.7k
-#   packed nc=16: 181.0k single / 489.6k S=16;  nc=32: 151.5k / 284.9k
-# The naive [BN, BN] masks fuse into their reductions at these sizes; the
-# packed path would only pay off when BN grows far past ~1k (revisit if
-# max_obs_per_frame or block sizes grow an order of magnitude).
+# (both bit-identical). The packed form's 32x-smaller fixpoint working set
+# lost to its packing multiplies and per-row first-bit gathers at
+# compact=16/32 on the code's first accelerator; the naive [BN, BN] masks
+# fuse into their reductions at these sizes. Not measured on a GPU yet.
 
 
 def _inblock_duplicates_naive(glob_k, otype_k, frame_of, cand, snap_match,
@@ -323,12 +312,11 @@ def _inblock_duplicates(glob_k, otype_k, frame_of, cand, snap_match,
 
     Bit-packed (r4): the naive form materialized the [BN, BN] bool pair
     mask and re-read it once per fixpoint round plus once per
-    representative reduction — measured at ~30% of the whole batched pass
-    (scripts/exp_byte_budget.py). The pair mask packs into [BN, BN/32]
-    uint32 words (32x smaller fixpoint working set); first-match
-    representatives come from lowest-set-bit extraction, and the
-    frame-order masks are packed prefix/band lookups with only B distinct
-    rows. The nearest/mahalanobis representative distance argmin recomputes
+    representative reduction, a large share of the batched pass's bytes.
+    The pair mask packs into [BN, BN/32] uint32 words (32x smaller
+    fixpoint working set); first-match representatives come from
+    lowest-set-bit extraction, and the frame-order masks are packed
+    prefix/band lookups with only B distinct rows. The nearest/mahalanobis representative distance argmin recomputes
     the pair predicates in one fused pass (glob_k/otype_k are a few KB).
     Results are bit-identical to the naive form
     (tests/test_blocked_equivalence.py).
@@ -428,7 +416,7 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp,
     `loop_closure_complete` is set; the caller's top-level GN finishes the
     job. An all-False okp makes the body an exact no-op.
 
-    `ablate` (measurement-only, scripts/exp_byte_budget.py) disables a
+    `ablate` (measurement-only, bench.py's byte budget) disables a
     subsystem to attribute its HBM traffic/FLOPs via XLA cost-analysis
     deltas: 'dup' (in-block duplicate pair machinery), 'assoc' (phase-A
     gating), 'packet' (cone-packet series), 'edges' (edge append),
@@ -482,18 +470,16 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp,
     # Mahalanobis configs gate with the block-start lm_info_xy (the boot
     # landmark's zero info row reproduces the per-frame scaled-Euclidean
     # bootstrap patch exactly); Euclidean configs get (d2, thresh2) back
-    # unchanged from _gate_cost. With an index-provider (Pallas kernel /
-    # sharded map blocks) the [BN, L] matrix is never materialized: the
-    # provider returns (j, matched, cost) and `gate` is set directly.
+    # unchanged from _gate_cost. With the sharded map-block provider the
+    # [BN, L] matrix is never materialized: the provider returns
+    # (j, matched, cost) and `gate` is set directly.
     lm_valid1 = jnp.arange(cap_l) < g.n_landmarks
-    use_provider = assoc_mesh is not None or \
-        (cfg.use_pallas_association and cfg.association != "first")
     if "assoc" in ablate:
         j_snap = jnp.zeros((BN,), jnp.int32)
         snap_match = jnp.zeros((BN,), bool)
         cost_snap = jnp.full((BN,), jnp.inf)
         gate = thresh2
-    elif use_provider:
+    elif assoc_mesh is not None:
         from tpuslam.frontend.keyframe import _provider_associate
         j_snap, snap_match, cost_prov = _provider_associate(
             glob_k, otype_k, valid_k, g.lm_xy, g.lm_type, lm_valid1,
@@ -610,8 +596,7 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp,
     #   (boot row first) as scan outputs; the caller stacks them via the
     #   scan's native static ys layout and compacts ONCE per pass. This
     #   removes the per-block dynamic-base updates entirely — under vmap
-    #   those lower to scatters and were measured at ~27% of the whole
-    #   batched pass (scripts/exp_byte_budget.py).
+    #   those lower to scatters, a large share of the batched pass.
     # - in-place (periodic window GN reads trailing edges in-body): three
     #   dynamic_update_slices per block, kept-first via one stable argsort
     #   (the old cumsum-rank + [BN] scatter lowered to a sort anyway).
@@ -747,8 +732,7 @@ def _loc_block(state: SlamState, obs, valid, poses, okp, cfg: SlamConfig,
     if "assoc" in ablate:
         j = jnp.zeros((BN,), jnp.int32)
         matched = jnp.zeros((BN,), bool)
-    elif assoc_mesh is not None or \
-            (cfg.use_pallas_association and cfg.association != "first"):
+    elif assoc_mesh is not None:
         # index-provider path (provider semantics: clean type equality,
         # min-cost match — exactly what the per-frame provider path does)
         from tpuslam.frontend.keyframe import _provider_associate
@@ -847,13 +831,12 @@ def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq,
 
     `unroll` unrolls both scans' bodies (lax.scan unroll): semantics are
     identical at any value (same op sequence, bit-exact), but the XLA
-    while-loop runs `unroll`x fewer iterations, amortizing the measured
-    per-iteration loop tax (~10-30 us/iteration of buffer bookkeeping on
-    v5e). This DECOUPLES the periodic-GN cadence from throughput: every-8
-    refinement must run at block=8 (firing boundaries land on block ends,
-    VERDICT r3 weak #2), and unrolling recovers the larger block's loop
-    amortization without changing which frames see which map
-    (scripts/exp_unroll_cadence.py has the measured table).
+    while-loop runs `unroll`x fewer iterations, amortizing the
+    per-iteration loop bookkeeping. This DECOUPLES the periodic-GN cadence
+    from throughput: every-8 refinement must run at block=8 (firing
+    boundaries land on block ends), and unrolling recovers the larger
+    block's loop amortization without changing which frames see which
+    map.
     """
     B = block
     Tp = obs_seq.shape[0]
@@ -976,9 +959,8 @@ def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq,
                                      | (fires[-1] & aux["closure_any"])))
                 do_p = fires[-1] & ~aux["closure_any"] & active & ~fb
                 if cfg.periodic_gn_window > 0:
-                    # fixed-lag refinement: straight-line, scan-safe (the
-                    # full optimize in-scan was the measured 24x pathology
-                    # — VERDICT r2 weak #2; scripts/exp_periodic_gn.py)
+                    # fixed-lag refinement: straight-line, scan-safe (a
+                    # full optimize in-scan puts GN in the loop body)
                     g2 = gn.optimize_window(
                         ns.graph, pcfg, cfg.periodic_gn_window,
                         cfg.periodic_gn_edge_window, enable=do_p,
@@ -1206,8 +1188,7 @@ def _per_frame_completion(state: SlamState, obs_seq, valid_seq, pose_seq,
 
 def _pick_compact(valid_seq, default: int = 32) -> int:
     """Data-driven observation-compaction width: the in-block pair
-    machinery is O((B*nc)^2), so halving nc is quadratic leverage
-    (measured 2.1x at the batched knee — scripts/exp_byte_budget.py). One
+    machinery is O((B*nc)^2), so halving nc is quadratic leverage. One
     host readback of the max per-frame valid count picks the smallest safe
     bucket; denser streams than the bucket would overflow and per-frame
     fallback, so the pick is always sound, never just fast.
@@ -1254,7 +1235,7 @@ def run_sequence_blocked(state: SlamState, obs_seq, valid_seq, pose_seq,
     if not blocked_supported(cfg, block):
         raise ValueError(
             "run_sequence_blocked: unsupported config (needs association in "
-            "('first','nearest','mahalanobis'), no pallas association, "
+            "('first','nearest','mahalanobis'), "
             "vectorized mapping, periodic_gn_every a multiple of the block "
             "size — or dividing it, with a fixed-lag window) — use "
             "run_sequence")

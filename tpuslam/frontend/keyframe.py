@@ -1,6 +1,6 @@
 """The per-keyframe SLAM update — one fused XLA program.
 
-This is the TPU-native replacement for the reference's hot path
+This is the JAX replacement for the reference's hot path
 (`Slam::performSLAM` -> `addConesToMap`/`localizer` -> publishing,
 reference src/slam.cpp:298-414). The whole update — GPS-outlier guard, pose
 insertion, data association, landmark creation, loop-closure detection, the
@@ -133,26 +133,14 @@ def _gate_cost(diff, d2, lm_info, cfg: SlamConfig):
     return cost, cfg.mahalanobis_gate
 
 
-def _use_assoc_kernel(cfg: SlamConfig) -> bool:
-    return cfg.use_pallas_association and cfg.association != "first"
-
-
-def _indexed_assoc(cfg: SlamConfig, assoc_mesh=None) -> bool:
-    """True when the association payload is (match_idx, matched) from a
-    provider (Pallas kernel or mesh-sharded map blocks) instead of the dense
-    (N x M) cost matrix."""
-    return assoc_mesh is not None or _use_assoc_kernel(cfg)
-
-
 def _associate_shared(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
                       assoc_mesh=None):
     """The association work shared by mapping and localization: observations
     to global frame, body-frame measurements, and the association payload —
     the (N x M) gating cost matrix (squared Euclidean, or Mahalanobis under
-    cfg.association='mahalanobis'); or, with cfg.use_pallas_association, the
-    tiled kernel's (match_idx, matched) pair with no (N x M) materialized;
-    or, with `assoc_mesh`, the same pair from the mesh-sharded map-block
-    provider (tpuslam/parallel/map_blocks.py) — association runs shard-local
+    cfg.association='mahalanobis'); or, with `assoc_mesh`, the
+    (match_idx, matched) pair from the mesh-sharded map-block provider, with
+    no (N x M) materialized (tpuslam/parallel/map_blocks.py) — association runs shard-local
     over the landmark axis and one pmin lattice reduction picks the global
     winner (the pod-scale map layout). Hoisted out of the
     mapping/localization cond so a vmapped step (which executes both
@@ -163,9 +151,6 @@ def _associate_shared(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
     if assoc_mesh is not None:
         j, matched = _associate_map_sharded(state, glob_all, obs, obs_valid,
                                             cfg, assoc_mesh)
-        return glob_all, body_all, j, matched
-    if _use_assoc_kernel(cfg):
-        j, matched = _associate_pallas(state, glob_all, obs, obs_valid, cfg)
         return glob_all, body_all, j, matched
     diff = glob_all[:, None, :] - state.graph.lm_xy[None, :, :]
     d2 = jnp.sum(diff * diff, axis=-1)
@@ -178,8 +163,7 @@ def _associate_map_sharded(state: SlamState, glob_all, obs, obs_valid,
     """Association against the landmark-sharded map
     (tpuslam.parallel.map_blocks.associate_sharded): every policy including
     the reference's 'first' (global first = smallest landmark index).
-    Exact vs the dense path on match decisions; like the Pallas provider it
-    does not reproduce the localizer signed-type quirk (clean type
+    Exact vs the dense path on match decisions; it does not reproduce the localizer signed-type quirk (clean type
     equality), so use it with localizer_type_bug=False configs."""
     g = state.graph
     j, matched, _ = _provider_associate(
@@ -190,8 +174,8 @@ def _associate_map_sharded(state: SlamState, glob_all, obs, obs_valid,
 
 def _mahal_packed(lm_info, cfg: SlamConfig):
     """Packed innovation information with the zero-information scaled-
-    Euclidean fallback — the per-landmark payload both index-providers
-    (Pallas kernel, sharded map blocks) gate with under 'mahalanobis'."""
+    Euclidean fallback — the per-landmark payload the sharded map-block
+    provider gates with under 'mahalanobis'."""
     thresh2 = cfg.same_cone_threshold ** 2
     fallback = cfg.mahalanobis_gate / thresh2
     has = (lm_info[:, 0] + lm_info[:, 2]) > 0.0
@@ -200,55 +184,25 @@ def _mahal_packed(lm_info, cfg: SlamConfig):
 
 
 def _provider_associate(glob, otype, valid, lm_xy, lm_type, lm_valid,
-                        lm_info, cfg: SlamConfig, assoc_mesh=None):
+                        lm_info, cfg: SlamConfig, assoc_mesh):
     """(match_idx, matched, cost) for a flat observation batch from the
-    configured index-provider: the mesh-sharded map blocks when
-    `assoc_mesh` is given, else the tiled Pallas kernel. Shared by the
+    mesh-sharded map-block provider over `assoc_mesh`. Shared by the
     per-frame and blocked pipelines."""
-    if assoc_mesh is not None:
-        from tpuslam.parallel.map_blocks import associate_sharded
-        if cfg.association == "mahalanobis":
-            p = _mahal_packed(lm_info, cfg)
-            a, b, c = p[:, 0], p[:, 1], p[:, 2]
-            cov_inv = jnp.stack(
-                [jnp.stack([a, b], -1), jnp.stack([b, c], -1)], -2)
-            j, matched, cost = associate_sharded(
-                glob, otype, valid, lm_xy, lm_type, lm_valid,
-                cfg.mahalanobis_gate, assoc_mesh, mode="mahalanobis",
-                lm_cov_inv=cov_inv)
-        else:
-            j, matched, cost = associate_sharded(
-                glob, otype, valid, lm_xy, lm_type, lm_valid,
-                cfg.same_cone_threshold, assoc_mesh, mode=cfg.association)
-        return j.astype(jnp.int32), matched, cost
-    from tpuslam.ops.pallas_assoc import associate_pallas
-    otype_eff = jnp.where(valid, otype, -2)         # -2 never matches
-    lm_type_eff = jnp.where(lm_valid, lm_type, -1)
+    from tpuslam.parallel.map_blocks import associate_sharded
     if cfg.association == "mahalanobis":
-        j, matched, cost = associate_pallas(
-            glob, otype_eff, lm_xy, lm_type_eff, cfg.mahalanobis_gate,
-            lm_cov_inv_packed=_mahal_packed(lm_info, cfg), mahalanobis=True)
+        p = _mahal_packed(lm_info, cfg)
+        a, b, c = p[:, 0], p[:, 1], p[:, 2]
+        cov_inv = jnp.stack(
+            [jnp.stack([a, b], -1), jnp.stack([b, c], -1)], -2)
+        j, matched, cost = associate_sharded(
+            glob, otype, valid, lm_xy, lm_type, lm_valid,
+            cfg.mahalanobis_gate, assoc_mesh, mode="mahalanobis",
+            lm_cov_inv=cov_inv)
     else:
-        j, matched, cost = associate_pallas(
-            glob, otype_eff, lm_xy, lm_type_eff,
-            cfg.same_cone_threshold ** 2)
+        j, matched, cost = associate_sharded(
+            glob, otype, valid, lm_xy, lm_type, lm_valid,
+            cfg.same_cone_threshold, assoc_mesh, mode=cfg.association)
     return j.astype(jnp.int32), matched, cost
-
-
-def _associate_pallas(state: SlamState, glob_all, obs, obs_valid,
-                      cfg: SlamConfig):
-    """Association via the tiled Pallas kernel (tpuslam.ops.pallas_assoc):
-    returns (match_idx [N], matched [N]) without materializing the (N x M)
-    cost matrix — the production path for maps too large for one VMEM-
-    friendly dense matrix (cfg.use_pallas_association). Policies 'nearest'
-    and 'mahalanobis'; the 'first' policy needs index order and stays on
-    the dense path. Zero-information landmarks fall back to the scaled
-    Euclidean gate exactly like `_gate_cost`."""
-    g = state.graph
-    j, matched, _ = _provider_associate(
-        glob_all, obs[:, 3].astype(jnp.int32), obs_valid, g.lm_xy,
-        g.lm_type, g.lm_valid, state.lm_info_xy, cfg)
-    return j, matched
 
 
 def _prefix_argmin_exclusive(vals, idxs):
@@ -268,7 +222,7 @@ def _prefix_argmin_exclusive(vals, idxs):
 
 def _mapping_step_vectorized(state: SlamState, obs, obs_valid, pose, pose_idx,
                              cfg: SlamConfig, defer_gn: bool = False,
-                             pre=None, indexed: bool | None = None):
+                             pre=None, indexed: bool = False):
     """Batched mapping-mode update — exactly the reference's sequential
     semantics (src/slam.cpp:552-635) re-expressed as vector ops.
 
@@ -289,8 +243,6 @@ def _mapping_step_vectorized(state: SlamState, obs, obs_valid, pose, pose_idx,
     n = obs.shape[0]
     cap_l = g.lm_xy.shape[0]
     cap_e = g.obs_pose.shape[0]
-    if indexed is None:
-        indexed = _use_assoc_kernel(cfg)
 
     # Bootstrap (reference src/slam.cpp:554-567), as in the sequential path.
     glob_all, body_all, pay_a, pay_b = pre if pre is not None else \
@@ -310,7 +262,7 @@ def _mapping_step_vectorized(state: SlamState, obs, obs_valid, pose, pose_idx,
     d2_col0 = jnp.sum(diff0 * diff0, axis=-1)
     if indexed:
         j, matched0 = pay_a, pay_b
-        # boot: the map was empty pre-kernel, so every hit goes to slot 0
+        # boot: the map was empty pre-association, so every hit goes to slot 0
         hit0 = (boot & (d2_col0 < thresh2) & (g.lm_type[0] == otype)
                 & obs_valid)
         j = jnp.where(hit0, 0, j)
@@ -528,8 +480,8 @@ def _publish_refine(pose_meas, lm, matched, meas_xy, cfg: SlamConfig,
     exactly). This is what breaks the accuracy/cadence coupling: the
     periodic window GN refreshes the MAP on its own schedule while every
     frame's published pose is refined against it (r4; the alternative —
-    firing the window GN every 8 frames — costs 4x throughput for the same
-    online ATE mechanism, scripts/exp_every8.py)."""
+    firing the window GN every 8 frames — pays a fixed-lag solve per 8
+    frames for the same online ATE mechanism)."""
     from tpuslam.backend.residuals import landmark_residuals
     dtype = pose_meas.dtype
     w = matched.astype(dtype) * jnp.asarray(cfg.publish_refine_obs_info,
@@ -575,7 +527,7 @@ def _pose_refine_rows(pose, lm, matched, meas_xy, iters=3):
 
 
 def _localization_step(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
-                       pre=None, indexed: bool | None = None):
+                       pre=None, indexed: bool = False):
     """Localization mode against the frozen map (reference src/slam.cpp:340-414).
 
     Vectorized: the reference's first-match-in-index-order per observation and
@@ -586,12 +538,10 @@ def _localization_step(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
     add them; published results are identical.
     """
     g = state.graph
-    if indexed is None:
-        indexed = _use_assoc_kernel(cfg)
     _glob, body_all, pay_a, pay_b = pre if pre is not None else \
         _associate_shared(state, obs, obs_valid, pose, cfg)
     if indexed:
-        j, matched = pay_a, pay_b   # provider semantics (kernel/sharded)
+        j, matched = pay_a, pay_b   # sharded-provider semantics
     else:
         cost, gate = pay_a, pay_b
         if cfg.reference_compat and cfg.localizer_type_bug:
@@ -674,7 +624,7 @@ def perform_keyframe(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
                                     keyframe_count=state.keyframe_count + 1)
         # association work shared by both branches (a vmapped cond runs both)
         pre = _associate_shared(state, obs, obs_valid, pose, cfg, assoc_mesh)
-        indexed = _indexed_assoc(cfg, assoc_mesh)
+        indexed = assoc_mesh is not None
 
         def mapping(state):
             if cfg.vectorized_mapping:

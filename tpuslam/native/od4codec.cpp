@@ -1,6 +1,6 @@
 // Native OD4 envelope codec — the hot ingest path.
 //
-// TPU-native equivalent of libcluon's envelope decoder (the reference's whole
+// Native equivalent of libcluon's envelope decoder (the reference's whole
 // comm stack is native C++: reference src/cluon-complete-build.hpp:6868-6957
 // framing, :5684-5840 proto decode). The Python codec in tpuslam.io.proto is
 // the semantics reference; this library does the bulk work for .rec scanning

@@ -1,6 +1,6 @@
 // Native OD4 multicast endpoint — the live ingest data-loader.
 //
-// TPU-native equivalent of libcluon's UDPReceiver/UDPSender pair (reference
+// Native equivalent of libcluon's UDPReceiver/UDPSender pair (reference
 // src/cluon-complete-build.hpp:5140-5340; impl :9129-9530): joins multicast
 // group 225.0.0.<CID>:12175, runs a select()-driven receive thread with
 // kernel RX timestamps (SIOCGSTAMP, reference :9486) and self-sent-datagram

@@ -3,7 +3,7 @@
 Replaces the reference's per-observation linear scan of the map
 (reference src/slam.cpp:570-607 mapping, :350-383 localization — O(N*M)
 sequential with early exit) with a single (N x M) cost-matrix computation plus
-masked reductions: one VPU-shaped program, no data-dependent control flow.
+masked reductions: one batched program, no data-dependent control flow.
 
 Three policies:
 - 'first':       FIRST landmark in index order within the Euclidean gate and
@@ -13,9 +13,6 @@ Three policies:
 - 'mahalanobis': nearest by Mahalanobis distance with per-landmark 2x2
                  covariances, gated by a chi-square threshold (the
                  generalization BASELINE.json mandates).
-
-The Pallas-tiled version for large maps lives in tpuslam.ops.pallas_assoc;
-this jnp version is the semantics reference and the small-map fast path.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Batched multi-session pipelines: vmap over independent SLAM sessions.
 
-The per-keyframe update is tiny by MXU standards (hundreds-of-landmarks maps,
-3-DoF poses), so a single online session is dispatch/overhead-bound on a TPU
-chip. The chip's answer is batching: `vmap(perform_keyframe)` runs S
+The per-keyframe update is tiny by accelerator standards (hundreds-of-landmarks
+maps, 3-DoF poses), so a single online session is dispatch/overhead-bound.
+The answer is batching: `vmap(perform_keyframe)` runs S
 independent sessions (cars, laps, replay shards) in lock-step, turning every
 elementwise op and small matmul into an S-wide batched op at essentially the
 cost of one. This is the single-chip complement of the cross-chip 'sessions'

@@ -265,8 +265,8 @@ def chain_optimize(g: FactorGraph, cfg: gn.GNConfig, mesh,
     compiled program.
     """
     if solver == "hier3":
-        # three-level nested dissection (parallel/hier3.py): tray (ICI
-        # group) -> pod (all-ICI domain, default one v5e pod or the whole
+        # three-level nested dissection (parallel/hier3.py): tray ->
+        # pod (default 256 devices, the comm model's pod, or the whole
         # mesh if smaller) -> cross-pod. The multi-pod path.
         from tpuslam.parallel.hier3 import chain_optimize_hier3
         n = mesh.devices.size

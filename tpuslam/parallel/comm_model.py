@@ -1,9 +1,8 @@
 """Analytic communication accounting + scaling model for the parallel tiers.
 
-Real multi-chip hardware is not reachable from this environment, and the
-8-virtual-devices-on-2-cores CPU mesh cannot exhibit real scaling (its
-wall-clocks validate the collective paths, not their efficiency —
-SCALING_r02 said so honestly). What CAN be stated rigorously is the
+A virtual CPU mesh cannot exhibit real scaling (its wall-clocks validate
+the collective paths, not their efficiency). What CAN be stated rigorously
+is the
 per-iteration communication volume of every tier — each collective's payload
 is a static function of the graph shape — and a first-order time model on
 top of it:
@@ -12,11 +11,13 @@ top of it:
 
 with bytes_on_wire the ring-allreduce cost 2*(D-1)/D * payload for psums,
 (D-1)/D * gathered for all_gathers, and (alpha, beta) the per-collective
-latency and inverse ICI bandwidth. Defaults model one v5e chip
-(~186 GB/s usable ICI per chip across its 4 links at 400 Gbps/link, ~1 us
-per collective hop) — both are stated inputs, not measurements, and the
-model's *relative* predictions (replicated vs DD vs resident) are validated
-against measured wall-clock ratios on the virtual mesh in bench_scaling.py.
+latency and inverse link bandwidth. The defaults model a TPU v5e pod's
+ICI and DCN links (~186 GB/s usable ICI per chip across its 4 links at
+400 Gbps/link, ~1 us per collective hop), the machine this code was first
+written for. They are stated inputs, not measurements, and every time the
+model gives is a prediction: no run on an H100 (NVLink, all to all) checks
+them. The model's *relative* predictions (replicated vs DD vs resident) are
+compared with wall-clock ratios on the virtual mesh in bench_scaling.py.
 
 Volumes are derived from the shard_map programs themselves:
 
@@ -77,9 +78,9 @@ def tier_bytes_per_iteration(tier: str, *, P: int, L: int, D: int,
 
 @dataclass(frozen=True)
 class CommModel:
-    ici_bw_bytes_per_s: float = 186e9   # one v5e chip's usable ICI
+    ici_bw_bytes_per_s: float = 186e9   # one TPU v5e chip's usable ICI
     collective_latency_s: float = 1e-6  # per collective launch/hop
-    # DCN tier (SURVEY §5.8 names ICI *and* DCN; VERDICT r3 next #4): the
+    # DCN tier (SURVEY §5.8 names ICI *and* DCN): the TPU pod's
     # inter-slice/host network. Both are stated inputs, not measurements —
     # ~25 GB/s usable per host (200 Gbps NICs) and ~10 us per collective.
     dcn_bw_bytes_per_s: float = 25e9

@@ -65,7 +65,7 @@ def distributed_gn_step(g: FactorGraph, cfg: gn.GNConfig, mesh) -> FactorGraph:
     with jax.default_matmul_precision("highest"):
         blocks = _sharded_blocks(mesh, g, cfg)
         blocks = gn._apply_gauge(g, cfg, *blocks)
-        dp, dl = gn.schur_solve(*blocks, use_cholesky_kernel=cfg.use_cholesky_kernel)
+        dp, dl = gn.schur_solve(*blocks)
     poses = g.poses + dp.reshape(-1, 3)
     poses = poses.at[:, 2].set(se2.wrap_angle(poses[:, 2]))
     return dataclasses.replace(g, poses=poses, lm_xy=g.lm_xy + dl)

@@ -280,14 +280,16 @@ def dedup_labels(all_xy, all_type, all_valid, gate, mesh=None,
 
 def _session_obs_counts(stacked: FactorGraph):
     """Per-session per-landmark observation counts [S, L] (edge validity
-    masked) — the merge weights. One-hot matmul, not a scatter."""
+    masked) — the merge weights. One-hot matmul, not a scatter, pinned to
+    full f32: at reduced precision (TF32 on a GPU) the sum would round."""
     s, e_cap = stacked.obs_lm.shape
     l_cap = stacked.lm_xy.shape[1]
 
     def one(obs_lm, n_obs):
         w = (jnp.arange(e_cap) < n_obs).astype(jnp.float32)
         onehot = (obs_lm[None, :] == jnp.arange(l_cap)[:, None])
-        return onehot.astype(jnp.float32) @ w
+        return jnp.matmul(onehot.astype(jnp.float32), w,
+                          precision=jax.lax.Precision.HIGHEST)
 
     return jax.vmap(one)(stacked.obs_lm, stacked.n_obs)
 

@@ -1,16 +1,16 @@
 """Device-mesh setup for pod-scale mapping.
 
 The reference has no distributed layer at all (SURVEY.md §2.4 — one process,
-one node, pub/sub over UDP multicast). The TPU framework's two parallel axes:
+one node, pub/sub over UDP multicast). This framework's two parallel axes:
 
 - 'sessions': data parallelism over independent mapping sessions (multi-lap /
   multi-car "multi-session pod-scale mapping" in BASELINE.json) — no
   communication except at solve reductions.
 - 'edges': model parallelism *within* a session — the landmark-observation
   edge list is sharded, each device assembles partial normal-equation blocks,
-  and `psum` over this axis carries the distributed Schur reduction. Within a
-  slice this rides ICI; across slices DCN (XLA picks the transport from the
-  mesh's device order).
+  and `psum` over this axis carries the distributed Schur reduction. On the
+  cards of one host XLA hands it to NCCL over NVLink, which joins every card
+  to every other, so the mesh order follows the algorithm alone.
 """
 from __future__ import annotations
 
@@ -48,8 +48,9 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None):
     """Multi-host bring-up (jax.distributed) — no-op when single-process.
 
-    On a real multi-host v5e slice each host calls this before building the
-    mesh; the env-var auto-detection path covers GKE/TPU-VM deployments.
+    On several hosts each process calls this before building the mesh,
+    with the coordinator address, process count and its own id (nothing in
+    the environment supplies them).
     """
     if num_processes is None or num_processes <= 1:
         return False

@@ -76,11 +76,10 @@ _IMAX = jnp.iinfo(jnp.int32).max
 
 def resident_online_supported(cfg: SlamConfig, block: int = 16) -> bool:
     """Configs the resident online pass reproduces: the blocked contract
-    (frontend.blocked.blocked_supported) minus the Pallas provider, plus
-    periodic GN must be fixed-lag (the full-batch periodic re-optimize is a
-    dense-map construct)."""
+    (frontend.blocked.blocked_supported), plus periodic GN must be
+    fixed-lag (the full-batch periodic re-optimize is a dense-map
+    construct)."""
     return (cfg.association in ("first", "nearest", "mahalanobis")
-            and not cfg.use_pallas_association
             and cfg.vectorized_mapping
             and (cfg.periodic_gn_every == 0
                  or ((cfg.periodic_gn_every % block == 0
@@ -722,8 +721,11 @@ def _window_gn_step_sharded(g: G.FactorGraph, lm_xy_l, cfg: gn.GNConfig,
     jtp = jnp.swapaxes(j_lp, -1, -2)
     onehot_p = (local[None, :] == jnp.arange(W)[:, None]).astype(dtype)
     hpp_e = (wl3 * (jtp @ j_lp)).reshape(EW, 9)
-    hd_lm = (onehot_p @ hpp_e).reshape(W, 3, 3)
-    gp_lm = onehot_p @ (w_le[:, None] * (jtp @ r_l[..., None])[..., 0])
+    # one-hot sums outside the precision scope below: pinned to full f32
+    hi = jax.lax.Precision.HIGHEST
+    hd_lm = jnp.matmul(onehot_p, hpp_e, precision=hi).reshape(W, 3, 3)
+    gp_lm = jnp.matmul(onehot_p, w_le[:, None]
+                       * (jtp @ r_l[..., None])[..., 0], precision=hi)
     # hd_lm/gp_lm ride the SAME psum launch as the eliminated reduced
     # system below (the elimination side is shard-local — VERDICT r4 next
     # #5); the pose-side gauge applies after the sum (elementwise mask)
@@ -1174,7 +1176,7 @@ def run_pass_resident_online(obs_seq, valid_seq, pose_seq, cfg: SlamConfig,
     if not resident_online_supported(cfg, block):
         raise ValueError(
             "run_pass_resident_online: unsupported config (needs the "
-            "blocked contract without Pallas association; periodic GN "
+            "blocked contract; periodic GN "
             "must be fixed-lag with boundaries on block ends)")
     D = mesh.shape[axis]
     L = cfg.capacity.max_landmarks

@@ -6,7 +6,7 @@ preserved in reference usecase/docker-compose.yml:34: ROI boundaries, RANSAC
 ground plane with dot/inlier thresholds and 10 iterations, connected
 clustering at 0.4 m, 2..80 points per cone, near/far radius and z-range
 validation). That service is CPU C++ with sequential region growing; this is
-the TPU-native redesign:
+the data-parallel redesign:
 
 - ROI + ground removal as masked vector ops.
 - RANSAC ground plane: all hypotheses evaluated at once (iterations x N
@@ -56,9 +56,7 @@ class AttentionConfig:
     label_iterations: int = 8          # min-label propagation rounds. With
     # the x2 pointer jumping each round triples a label's reach, so 8 rounds
     # cover component diameters far beyond any cone cluster (~3 cells);
-    # measured on a full 28.8k-point sweep: 8 rounds produce detections
-    # identical to 16 at 1.6x the speed (scripts/exp_attention_profile.py —
-    # grid clustering is 14 of the 15.9 ms sweep, RANSAC/segment stats < 1%)
+    # on a full 28.8k-point sweep 8 rounds produce detections identical to 16
     max_cones: int = 64
     sensor_height: float = 0.0         # sensor z above ground
     # clustering provider: 'dense' = exact NxN adjacency; 'grid' = hashed
@@ -67,9 +65,8 @@ class AttentionConfig:
     clustering: str = "auto"
     dense_max_points: int = 4096
     cell_capacity: int = 32            # cell-table slots per grid cell: the
-    # label loop is O(C * K * 9K), so K is quadratic leverage (K=32 is
-    # another 1.55x over 16 rounds at K=64, identical detections on the
-    # full-sweep scene). Ground-masked obstacle points rarely exceed ~16
+    # label loop is O(C * K * 9K), so K is quadratic leverage (K=32 gives
+    # detections identical to K=64 on the full-sweep scene). Ground-masked obstacle points rarely exceed ~16
     # per 0.4 m cell; a single cone overflowing one cell folds into that
     # cell's rank-0 component, which IS its cluster (capacity caveat in
     # _connected_components_grid)
@@ -117,10 +114,9 @@ def _connected_components(points_xy, valid, cfg: AttentionConfig):
         return jnp.minimum(lab, jnp.min(neigh, axis=1))
 
     # 2x plain rounds instead of the grid provider's jump-compressed rounds:
-    # a [N] pointer-jump gather costs ~37 us on v5e at N=4k (gathers lower
-    # to scalar loads) while one more [N, N] masked-min round is pure VPU —
-    # doubling cheap rounds restores the same worst-case chain reach
-    # (barrier diameters ~2*label_iterations hops) at 1.6x the speed
+    # no [N] pointer-jump gather, and doubling the [N, N] masked-min rounds
+    # restores the same worst-case chain reach (barrier diameters
+    # ~2*label_iterations hops)
     return jax.lax.fori_loop(0, 2 * cfg.label_iterations, body, labels)
 
 
@@ -131,12 +127,12 @@ def _connected_components_grid(points_xy, valid, cfg: AttentionConfig):
     sweep. Here points hash into square cells of side h =
     connect_distance_threshold over the static ROI extent (valid points are
     always inside the ROI — detect_cones masks first), so any neighbor
-    within h lies in the 3x3 cell neighborhood. TPU-shaping (measured on
-    v5e): a per-POINT candidate-list gather costs ~77 ms/iteration at 32k
-    points (gathers lower to scalar loads), so instead points pack into a
-    dense [cells, cell_capacity] table and the label loop touches neighbors
-    via 9 STATIC jnp.roll shifts of the [nx, ny, K] grid — zero gathers in
-    the hot loop; the masked min over [cells, K, 9K] is pure VPU work.
+    within h lies in the 3x3 cell neighborhood. Points pack into a dense
+    [cells, cell_capacity] table and the label loop touches neighbors via
+    9 STATIC jnp.roll shifts of the [nx, ny, K] grid — zero per-point
+    gathers in the hot loop (a form chosen for the code's first
+    accelerator; the gather form is not measured on a GPU yet); the masked
+    min over [cells, K, 9K] is elementwise work.
     Labels are table-slot ids (min-slot hooking + pointer jumping via one
     tiny [cells*K] gather), mapped back to per-point original-index
     representatives at the end.

@@ -51,8 +51,8 @@ class SlamConfig:
     periodic_gn_window: int = 0           # >0: periodic refinement is
                                           # FIXED-LAG — GN over the trailing
                                           # k poses with the map held fixed
-                                          # (gn.optimize_window, ~100 us vs
-                                          # 2-4 ms for the full re-optimize);
+                                          # (gn.optimize_window, a fraction
+                                          # of the full re-optimize's work);
                                           # 0 = full-batch periodic GN. The
                                           # closure optimization is always
                                           # full-batch.
@@ -67,7 +67,6 @@ class SlamConfig:
                                           # window at ~9 obs/frame (~600
                                           # in-window edges) with ~70%
                                           # slack at half the 2048 cost
-                                          # (scripts/exp_every8.py)
     periodic_gn_window_landmarks: bool = True
                                           # fixed-lag refinement also updates
                                           # the map (landmarks anchored by
@@ -80,7 +79,8 @@ class SlamConfig:
                                           # tangential information is
                                           # 1/(range * sigma_az_rad)^2
     vectorized_mapping: bool = True       # batched mapping step (same semantics,
-                                          # ~10x faster; False = lax.scan form)
+                                          # no per-observation scan; False =
+                                          # lax.scan form)
     mapping_publish_refine: bool = False  # improvement: the PUBLISHED pose in
                                           # mapping mode is a per-frame MAP
                                           # estimate (landmark-fixed 3x3 GN
@@ -100,16 +100,8 @@ class SlamConfig:
                                           # refreshes, so the output filter
                                           # trusts it less than the solver
                                           # does. Swept 4/10/25/100 on long
-                                          # + short trackdrive: 25 is best
-                                          # on both (0.111/0.122 m vs
-                                          # 0.123/0.138 at 100)
-    use_pallas_association: bool = False  # route association through the
-                                          # tiled Pallas kernel
-                                          # (ops/pallas_assoc.py) instead of
-                                          # the dense (N x M) matrix — for
-                                          # maps too large to materialize per
-                                          # frame; 'nearest'/'mahalanobis'
-                                          # only ('first' needs index order)
+                                          # + short trackdrive: 25 gave the
+                                          # best online ATE on both
     in_frame_dup_depth: int = 4           # max same-frame duplicate-chain depth
                                           # merged by the vectorized step; the
                                           # scan form is unbounded (sequential);
@@ -123,7 +115,7 @@ class SlamConfig:
                                           # (replaces gauge clamping)
     gps_prior_std: float = 0.15           # GPS xy sigma [m] for the prior
     heading_prior_std: float = 0.05       # heading sigma [rad] for the prior
-    gn_matmul_precision: str = "highest"  # MXU precision for GN assembly/Schur
+    gn_matmul_precision: str = "highest"  # dot precision for GN assembly/Schur
                                           # ("highest"|"high"|"default"); see
                                           # GNConfig.matmul_precision
     gn_early_exit_tol: float = 1e-4       # stop GN once max|update| falls to
@@ -148,11 +140,10 @@ class SlamConfig:
         association, absolute GPS/heading priors instead of gauge clamping,
         calibrated information weights, localization refinement, periodic
         fixed-lag re-optimization, and per-frame published-pose MAP
-        refinement. On the trackdrive benchmark: ~33% lower final ATE and
-        ~15x lower map error than the reference pipeline; online ATE
-        0.111 m at the every-16 refresh (r4 — the old every-8 default
-        measured 0.157 m at ~4x the cost; publication refinement decoupled
-        online accuracy from the refresh cadence, see MIGRATION.md)."""
+        refinement. On the trackdrive benchmark lap it publishes at
+        0.1019 m online ATE (block 32, every-16 refresh, on an H100 and on
+        the CPU alike — chip_smoke.py); publication refinement decouples
+        online accuracy from the refresh cadence (see MIGRATION.md)."""
         base = dict(reference_compat=False, association="nearest",
                     localizer_type_bug=False, localizer_refine=True,
                     use_gps_prior=True, lm_info=100.0, odo_info=1.0,

@@ -7,7 +7,7 @@ with a full float64 Gauss-Newton (tpuslam.backend.golden), then frozen-map
 localization. It deliberately mirrors the C++ loop structure instead of
 vectorizing, because it serves two purposes:
 
-1. Oracle: the TPU engine in reference_compat mode must produce the same map
+1. Oracle: the JAX engine in reference_compat mode must produce the same map
    and trajectory on the same inputs (tested in tests/test_compat_oracle.py).
 2. Baseline: BASELINE.md requires *measured* reference performance — this is
    the reference stand-in bench.py times on CPU (the original C++/g2o service
